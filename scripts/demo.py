@@ -19,10 +19,13 @@ def main():
     ap.add_argument("--out", default="docs")
     args = ap.parse_args()
 
-    from graphslam_tpu import metrics, viz
-    from graphslam_tpu.config import FrontendConfig, SLAMConfig, SolverConfig
-    from graphslam_tpu.sim import simulate_trajectory
-    from graphslam_tpu.slam import run_slam
+    from graphslam import metrics, viz
+    from graphslam.config import FrontendConfig, SLAMConfig, SolverConfig
+    from graphslam.sim import simulate_trajectory
+    from graphslam.slam import run_slam
+    from graphslam.utils import enable_compile_cache
+
+    enable_compile_cache()
 
     max_points = -(-args.beams // 128) * 128
     cfg = SLAMConfig(
@@ -49,7 +52,7 @@ def main():
         state.kf_poses, state.kf_points, state.kf_masks, n,
         path=os.path.join(args.out, "demo_map.png"),
     )
-    from graphslam_tpu.slam.pipeline import state_to_dataset
+    from graphslam.slam.pipeline import state_to_dataset
 
     ds = state_to_dataset(state)
     # align ground truth into the estimate frame for the overlay (ATE above

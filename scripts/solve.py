@@ -34,11 +34,15 @@ def main():
     ap.add_argument("--plot", help="write trajectory plot to this png path")
     args = ap.parse_args()
 
-    from graphslam_tpu import metrics, viz
-    from graphslam_tpu.config import SolverConfig
-    from graphslam_tpu.factors import chi2, from_dataset
-    from graphslam_tpu.io import datasets, save_g2o
-    from graphslam_tpu.solver import lm_solve
+    from graphslam import metrics
+    from graphslam.config import SolverConfig
+    from graphslam.factors import chi2, from_dataset
+    from graphslam.io import datasets, save_g2o
+    from graphslam.solver import lm_solve
+    from graphslam.utils import enable_compile_cache
+
+    enable_compile_cache()
+    print(f"device: {jax.devices()[0].device_kind}", file=sys.stderr)
 
     data = datasets.load(args.dataset)
     graph = from_dataset(data)
@@ -47,7 +51,7 @@ def main():
         if data["dim"] != 2:
             print("chordal init is SE(2)-only for now", file=sys.stderr)
             sys.exit(2)
-        from graphslam_tpu.solver.init import chordal_init_se2
+        from graphslam.solver.init import chordal_init_se2
 
         poses0 = chordal_init_se2(graph, poses0.shape[0])
     cfg = SolverConfig(
@@ -59,8 +63,7 @@ def main():
     )
 
     t0 = time.time()
-    out = lm_solve(poses0, graph, cfg)
-    np.asarray(out.poses)  # sync
+    out = jax.block_until_ready(lm_solve(poses0, graph, cfg))
     dt = time.time() - t0
 
     print(f"poses: {poses0.shape[0]}  edges: {graph.num_edges}", file=sys.stderr)
@@ -92,6 +95,8 @@ def main():
         )
         print(f"wrote {args.out}", file=sys.stderr)
     if args.plot:
+        from graphslam import viz
+
         viz.plot_trajectory(
             np.asarray(out.poses),
             gt=data.get("gt"),

@@ -22,12 +22,12 @@ import tty
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu.config import SLAMConfig
-from graphslam_tpu.frontend.projection import beam_angles
-from graphslam_tpu.geometry import se2
-from graphslam_tpu.sim import default_world, raycast
-from graphslam_tpu.slam import init_state, make_slam_step
-from graphslam_tpu import viz
+from graphslam.config import SLAMConfig
+from graphslam.frontend.projection import beam_angles
+from graphslam.geometry import se2
+from graphslam.sim import default_world, raycast
+from graphslam.slam import init_state, make_slam_step
+from graphslam import viz
 
 # The reference's moveBindings/speedBindings subset that applies to a
 # differential-drive planar robot.

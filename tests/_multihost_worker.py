@@ -3,9 +3,9 @@
 Run as:  python tests/_multihost_worker.py <process_id> <num_procs> <port> <out.npy>
 
 Each process exposes 2 virtual CPU devices; jax.distributed wires them into
-one 2*num_procs-device runtime — the same bring-up a TPU pod uses
+one 2*num_procs-device runtime — the same bring-up a multi-host cluster uses
 (parallel/multihost.py, replacing the reference's rosmaster/roslaunch,
-/root/reference/src/common/launch/fingers-crossed-go-baby-go.launch:3-8).
+src/common/launch/fingers-crossed-go-baby-go.launch:3-8).
 """
 
 import os
@@ -31,7 +31,7 @@ def main():
     pid, nproc, port, out_path = (
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     )
-    from graphslam_tpu.parallel import multihost
+    from graphslam.parallel import multihost
 
     multihost.initialize(
         coordinator_address=f"127.0.0.1:{port}",
@@ -41,10 +41,10 @@ def main():
     assert jax.process_count() == nproc
     assert len(jax.devices()) == 2 * nproc, jax.devices()
 
-    from graphslam_tpu.config import SolverConfig
-    from graphslam_tpu.factors import from_dataset
-    from graphslam_tpu.io import datasets
-    from graphslam_tpu.parallel import dist_lm_solve, shard_graph
+    from graphslam.config import SolverConfig
+    from graphslam.factors import from_dataset
+    from graphslam.io import datasets
+    from graphslam.parallel import dist_lm_solve, shard_graph
 
     mesh = multihost.global_mesh()
     data = datasets.manhattan(n_poses=200, loop_prob=0.2, seed=7)

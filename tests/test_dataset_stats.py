@@ -13,7 +13,7 @@ throughput; these tests make that impossible to ship silently.
 import numpy as np
 import pytest
 
-from graphslam_tpu.io import datasets
+from graphslam.io import datasets
 
 # name -> (generator, published poses, published edges)
 PUBLISHED = {

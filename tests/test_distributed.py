@@ -4,13 +4,14 @@ solver must match the single-device solver bit-for-bit-ish and converge."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from graphslam_tpu import metrics
-from graphslam_tpu.config import SolverConfig
-from graphslam_tpu.factors import from_dataset, chi2
-from graphslam_tpu.io import datasets
-from graphslam_tpu.parallel import make_mesh, shard_graph, dist_gn_solve, dist_lm_solve
-from graphslam_tpu.solver import gn_solve
+from graphslam import metrics
+from graphslam.config import SolverConfig
+from graphslam.factors import from_dataset, chi2
+from graphslam.io import datasets
+from graphslam.parallel import make_mesh, shard_graph, dist_gn_solve, dist_lm_solve
+from graphslam.solver import gn_solve
 
 
 class TestDistributed:
@@ -89,3 +90,44 @@ class TestDistributed:
         multi = dist_gn_solve(poses0, sharded, mesh, SolverConfig(mode="pcg"), iterations=3)
         single = gn_solve(poses0, graph, SolverConfig(mode="pcg"), iterations=3)
         assert np.allclose(single, multi, atol=1e-3)
+
+
+# Mesh-size invariance: the same graph on 1, 2, 4 and 8 devices must reach
+# the single-device solver's answer (reduction order differs; float32).
+@pytest.fixture(scope="module")
+def invariance_case():
+    data = datasets.manhattan(n_poses=120, seed=16)
+    return from_dataset(data), jnp.asarray(data["poses"])
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+def test_dist_lm_mesh_size_invariance(n_dev, invariance_case):
+    from graphslam.solver import lm_solve
+
+    graph, poses0 = invariance_case
+    cfg = SolverConfig(mode="pcg", cg_max_iterations=200, cg_tol=1e-10,
+                       max_iterations=15)
+    single = lm_solve(poses0, graph, cfg)
+    mesh = make_mesh(num_devices=n_dev)
+    multi = dist_lm_solve(poses0, shard_graph(graph, mesh), mesh, cfg,
+                          iterations=15)
+    e_s = float(single.error)
+    e_m = float(chi2(jnp.asarray(multi), graph))
+    assert abs(e_m - e_s) <= 1e-3 * e_s, (e_s, e_m)
+    assert np.allclose(single.poses, multi, atol=5e-3)
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+def test_dist_schur_mesh_size_invariance(n_dev, invariance_case):
+    from graphslam.parallel.dist_schur import dist_schur_gn_solve
+    from graphslam.solver.schur import schur_plan
+
+    graph, poses0 = invariance_case
+    single = gn_solve(poses0, graph, SolverConfig(mode="dense"), iterations=4)
+    plan = schur_plan(np.asarray(graph.edges), poses0.shape[0], 8)
+    multi = dist_schur_gn_solve(poses0, graph, plan, make_mesh(num_devices=n_dev),
+                                iterations=4)
+    assert np.allclose(single, multi, atol=5e-3)
+    e_s = float(chi2(single, graph))
+    e_m = float(chi2(jnp.asarray(multi), graph))
+    assert abs(e_m - e_s) <= 1e-3 * e_s + 1e-3, (e_s, e_m)

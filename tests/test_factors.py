@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu.factors.linearize import linearize_edges, linearize_priors
-from graphslam_tpu.geometry import se2
+from graphslam.factors.linearize import linearize_edges, linearize_priors
+from graphslam.geometry import se2
 
 KEY = jax.random.PRNGKey(42)
 
@@ -70,7 +70,7 @@ class TestSE2Jacobians:
         assert np.allclose(Jj, Jj2, atol=2e-4)
 
     def test_se3_between_jacobians_match_jacfwd(self):
-        from graphslam_tpu.geometry import se3, so3
+        from graphslam.geometry import se3, so3
 
         k1, k2, k3, k4 = jax.random.split(KEY, 4)
         E = 12
@@ -105,7 +105,7 @@ class TestSE2Jacobians:
         assert np.allclose(Ji, Ji2, atol=5e-3), np.abs(np.asarray(Ji - Ji2)).max()
 
     def test_se3_jl_inv_identity_at_zero(self):
-        from graphslam_tpu.geometry import se3
+        from graphslam.geometry import se3
 
         J = se3.left_jacobian_inv(jnp.zeros(6))
         assert np.allclose(J, np.eye(6), atol=1e-6)

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu.config import FrontendConfig
-from graphslam_tpu.frontend import gicp_match, scan_to_points
-from graphslam_tpu.frontend.icp import estimate_normals
-from graphslam_tpu.frontend.keyframes import motion_covariance
-from graphslam_tpu.frontend.projection import beam_angles
-from graphslam_tpu.geometry import se2
-from graphslam_tpu.sim import default_world, raycast
+from graphslam.config import FrontendConfig
+from graphslam.frontend import gicp_match, scan_to_points
+from graphslam.frontend.icp import estimate_normals
+from graphslam.frontend.keyframes import motion_covariance
+from graphslam.frontend.projection import beam_angles
+from graphslam.geometry import se2
+from graphslam.sim import default_world, raycast
 
 CFG = FrontendConfig(num_beams=361, fov_rad=4.71716, max_points=384)
 ANGLES = beam_angles(CFG.num_beams, CFG.fov_rad)
@@ -138,7 +138,7 @@ class TestMatchInformedCovariance:
         # direction far above the cross-corridor one — the graded
         # replacement for the reference's binary accept/reject
         # (scanner.hpp:64-80 modeled only motion magnitude).
-        from graphslam_tpu.slam.pipeline import _factor_covariance
+        from graphslam.slam.pipeline import _factor_covariance
 
         xs = jnp.linspace(-10.0, 10.0, 180)
         top = jnp.stack([xs, jnp.full_like(xs, 1.5)], -1)
@@ -160,7 +160,7 @@ class TestMatchInformedCovariance:
     def test_good_match_tightens_over_motion_model(self):
         # A well-constrained room scan: the match information should beat
         # the coarse motion-scaled model for a large step.
-        from graphslam_tpu.slam.pipeline import _factor_covariance
+        from graphslam.slam.pipeline import _factor_covariance
 
         pose = jnp.array([-7.0, -5.0, 0.3])
         pts, mask = scan_at(pose)

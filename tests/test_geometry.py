@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphslam_tpu.geometry import se2, se3, so2, so3
+from graphslam.geometry import se2, se3, so2, so3
 
 KEY = jax.random.PRNGKey(0)
 

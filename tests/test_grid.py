@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu.config import FrontendConfig
-from graphslam_tpu.frontend.projection import beam_angles
-from graphslam_tpu.sim import default_world, raycast
-from graphslam_tpu.sim.grid import load_pgm, rasterize_world, raycast_grid
+from graphslam.config import FrontendConfig
+from graphslam.frontend.projection import beam_angles
+from graphslam.sim import default_world, raycast
+from graphslam.sim.grid import load_pgm, rasterize_world, raycast_grid
 
 
 def test_grid_matches_segment_raycast():

@@ -4,12 +4,12 @@ odometry-integrated guess is hopeless, and must rescue LM from that case."""
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu import metrics
-from graphslam_tpu.config import SolverConfig
-from graphslam_tpu.factors import from_dataset, chi2
-from graphslam_tpu.io import datasets
-from graphslam_tpu.solver import lm_solve
-from graphslam_tpu.solver.init import chordal_init_se2
+from graphslam import metrics
+from graphslam.config import SolverConfig
+from graphslam.factors import from_dataset, chi2
+from graphslam.io import datasets
+from graphslam.solver import lm_solve
+from graphslam.solver.init import chordal_init_se2
 
 
 def hard_dataset():
@@ -50,7 +50,7 @@ def test_chordal_rescues_lm():
 
 
 def test_chordal_se3_beats_odometry_init():
-    from graphslam_tpu.solver.init import chordal_init_se3
+    from graphslam.solver.init import chordal_init_se3
 
     data = datasets.sphere(
         n_rings=15, poses_per_ring=15, radius=8.0, rot_sigma=0.05, seed=35

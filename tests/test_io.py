@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from graphslam_tpu.io import datasets, load_g2o, save_g2o
+from graphslam.io import datasets, load_g2o, save_g2o
 
 
 class TestG2O:
@@ -53,7 +53,7 @@ class TestG2ORobustness:
         import pytest
 
         try:
-            from graphslam_tpu.io import native_g2o
+            from graphslam.io import native_g2o
             native_g2o._lib()
         except OSError:
             pytest.skip("native parser not built")
@@ -73,7 +73,7 @@ class TestNativeParser:
         import pytest
 
         try:
-            from graphslam_tpu.io import native_g2o
+            from graphslam.io import native_g2o
             native_g2o._lib()
         except OSError:
             pytest.skip("native parser not built (make -C native)")
@@ -89,7 +89,7 @@ class TestNativeParser:
         import pytest
 
         try:
-            from graphslam_tpu.io import native_g2o
+            from graphslam.io import native_g2o
             native_g2o._lib()
         except OSError:
             pytest.skip("native parser not built (make -C native)")
@@ -106,9 +106,9 @@ class TestCheckpoint:
     def test_roundtrip_slam_state(self, tmp_path):
         import jax.numpy as jnp
 
-        from graphslam_tpu.config import FrontendConfig, SLAMConfig
-        from graphslam_tpu.io.checkpoint import save_state, load_slam_state
-        from graphslam_tpu.slam import init_state
+        from graphslam.config import FrontendConfig, SLAMConfig
+        from graphslam.io.checkpoint import save_state, load_slam_state
+        from graphslam.slam import init_state
 
         cfg = SLAMConfig(
             max_keyframes=16, max_factors=32,
@@ -126,8 +126,8 @@ class TestCheckpoint:
 
 class TestLogs:
     def test_roundtrip(self, tmp_path):
-        from graphslam_tpu.config import FrontendConfig
-        from graphslam_tpu.io.logs import save_log, load_log
+        from graphslam.config import FrontendConfig
+        from graphslam.io.logs import save_log, load_log
 
         cfg = FrontendConfig(num_beams=5)
         scans = np.random.default_rng(0).uniform(0.1, 10.0, (7, 5)).astype(np.float32)

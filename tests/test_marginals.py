@@ -4,9 +4,9 @@ sanity law (marginals grow with distance from the anchor along a chain)."""
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu.factors import from_dataset
-from graphslam_tpu.io import datasets
-from graphslam_tpu.solver.marginals import (
+from graphslam.factors import from_dataset
+from graphslam.io import datasets
+from graphslam.solver.marginals import (
     marginal_covariances_dense,
     marginal_covariance_cg,
 )
@@ -34,7 +34,7 @@ def test_uncertainty_grows_from_anchor():
 
 
 def test_all_pose_selected_inverse_matches_dense():
-    from graphslam_tpu.solver.marginals import marginal_covariances_all
+    from graphslam.solver.marginals import marginal_covariances_all
 
     data = datasets.manhattan(n_poses=120, loop_prob=0.25, seed=19)
     graph = from_dataset(data)
@@ -48,7 +48,7 @@ def test_all_pose_selected_inverse_matches_dense():
 
 
 def test_all_pose_selected_inverse_chain_only():
-    from graphslam_tpu.solver.marginals import marginal_covariances_all
+    from graphslam.solver.marginals import marginal_covariances_all
 
     data = datasets.manhattan(n_poses=80, loop_prob=0.0, seed=20)
     graph = from_dataset(data)

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu import metrics
-from graphslam_tpu.geometry import se2
+from graphslam import metrics
+from graphslam.geometry import se2
 
 
 def test_ate_zero_for_identical():
@@ -32,7 +32,7 @@ def test_rpe_detects_local_error():
 
 
 def test_rpe_se3():
-    from graphslam_tpu.io import datasets
+    from graphslam.io import datasets
 
     d = datasets.sphere(n_rings=4, poses_per_ring=8)
     est = jnp.asarray(d["poses"])

@@ -5,8 +5,8 @@ This exercises parallel/multihost.py for real — the replacement for the
 reference's rosmaster/roslaunch process layer
 (/root/reference/src/common/launch/fingers-crossed-go-baby-go.launch:3-8).
 Two OS processes with 2 virtual CPU devices each form one 4-device runtime;
-dist_lm_solve's psum separator combines then span a process (DCN-class)
-boundary exactly as they would span hosts on a pod.
+dist_lm_solve's psum separator combines then span a process boundary
+exactly as they would span hosts in a cluster.
 """
 
 import os
@@ -79,10 +79,10 @@ def test_two_process_dist_lm_matches_single_process(tmp_path):
     mp_poses = np.load(out_path)
 
     # single-process reference on a 4-device mesh (same shard count)
-    from graphslam_tpu.config import SolverConfig
-    from graphslam_tpu.factors import from_dataset
-    from graphslam_tpu.io import datasets
-    from graphslam_tpu.parallel import dist_lm_solve, make_mesh, shard_graph
+    from graphslam.config import SolverConfig
+    from graphslam.factors import from_dataset
+    from graphslam.io import datasets
+    from graphslam.parallel import dist_lm_solve, make_mesh, shard_graph
 
     data = datasets.manhattan(n_poses=200, loop_prob=0.2, seed=7)
     graph = from_dataset(data)

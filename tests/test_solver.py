@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from graphslam_tpu import metrics
-from graphslam_tpu.config import SolverConfig
-from graphslam_tpu.factors import FactorGraph, from_dataset, chi2, linearize
-from graphslam_tpu.geometry import se2
-from graphslam_tpu.io import datasets
-from graphslam_tpu.solver import build_blocks, dense_solve, pcg_solve, gn_solve, lm_solve
-from graphslam_tpu.solver.normal_eq import hvp, _damped_diag
+from graphslam import metrics
+from graphslam.config import SolverConfig
+from graphslam.factors import FactorGraph, from_dataset, chi2, linearize
+from graphslam.geometry import se2
+from graphslam.io import datasets
+from graphslam.solver import build_blocks, dense_solve, pcg_solve, gn_solve, lm_solve
+from graphslam.solver.normal_eq import hvp, _damped_diag
 
 
 def tiny_se2_graph(noise=0.0, seed=0):

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from graphslam_tpu.solver.tridiag import cr_factor, cr_solve, chain_offdiag
+from graphslam.solver.tridiag import cr_factor, cr_solve, chain_offdiag
 
 
 def random_spd_tridiag(n, T=3, seed=0):

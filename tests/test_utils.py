@@ -2,7 +2,7 @@
 
 import time
 
-from graphslam_tpu.utils import Counters, Stopwatch
+from graphslam.utils import Counters, Stopwatch
 
 
 def test_stopwatch_accumulates():

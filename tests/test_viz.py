@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from graphslam_tpu import viz
-from graphslam_tpu.io import datasets
+from graphslam import viz
+from graphslam.io import datasets
 
 
 def test_plot_trajectory(tmp_path):
